@@ -16,6 +16,9 @@ Replicates the reference hot loop's per-sample semantics
 The only deviation from the C loop is accumulating phases in closed form
 instead of 260000 sequential float additions, which differs by at most a
 few ULPs of drift per epoch.  Used as the ground truth for kernel tests.
+
+`bandlimit_filter_oracle` is the same kind of plain float64 reference
+for the --bandlimit polyphase filter (ops/bandlimit.py).
 """
 
 from __future__ import annotations
@@ -64,3 +67,25 @@ def synth_epoch_oracle(batch: EpochBatch, e: int, nsamples: int = NUM_IQ_SAMPLES
     iq[0::2] = i_acc.astype(np.int16)
     iq[1::2] = q_acc.astype(np.int16)
     return iq
+
+
+def bandlimit_filter_oracle(stacked, hist, n_real: int):
+    """Plain float64 reference of `bandlimit._filter_block`: the same
+    polyphase filter as twelve `np.correlate` calls, truncated to int16.
+    Returns ((B, 2N) int16, (2, OS, 2*V0) float64 new state)."""
+    from .bandlimit import V0, polyphase_kernel
+
+    x = np.asarray(stacked, np.float64)
+    OSs, B, twoN = x.shape
+    N = twoN // 2
+    iq = np.stack([x[:, :, 0::2].reshape(OSs, -1), x[:, :, 1::2].reshape(OSs, -1)])
+    ext = np.concatenate([np.asarray(hist, np.float64), iq], axis=-1)
+    K = polyphase_kernel()[0].astype(np.float64)  # (OS, 2*V0+1)
+    y = np.stack([
+        sum(np.correlate(ext[c, j], K[j], mode="valid") for j in range(OSs))
+        for c in range(2)
+    ])  # (2, L)
+    out = np.empty((B, twoN), np.int16)
+    out[:, 0::2] = np.trunc(y[0]).reshape(B, N)
+    out[:, 1::2] = np.trunc(y[1]).reshape(B, N)
+    return out, ext[:, :, n_real * N : n_real * N + 2 * V0]

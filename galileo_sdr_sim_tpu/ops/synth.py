@@ -1,6 +1,6 @@
 """Device-side baseband synthesis (XLA path).
 
-TPU-first reformulation of the reference's sequential NCO loop
+Data-parallel reformulation of the reference's sequential NCO loop
 (reference: src/galileo-sdr.cpp:481-539).  Within one 0.1 s epoch the
 carrier/code frequencies are constant, so both NCO phases are affine in
 the sample index; the whole epoch is computed data-parallel:
@@ -39,8 +39,13 @@ from ..constants import CA_SEQ_LEN_E1, LUT_AMPLITUDE, NUM_IQ_SAMPLES, SAMP_RATE
 from ..scenario import EpochBatch
 
 DELT = 1.0 / SAMP_RATE
-TILE = 32768  # samples per seeded tile; large tiles amortize per-tile
-# overhead (measured fastest on v5e; see docs/kernel_design.md)
+# samples per seeded tile.  The f32 phase error grows with the tile
+# (a*j reaches ~0.4*TILE chips): at 32768 the GPU's lut512 stream fell
+# below the reference-loop bound of tests/test_hotloop_ref_ab.py (corr
+# 0.99884 < 0.999 on an H100), at 4096 it holds (corr >= 0.99952).  The
+# smaller tile costs device time at B=1 on an H100 (lut512 62 vs 47 us
+# per 0.1 s epoch) and none at B=8 (PERF.md)
+TILE = 4096
 
 
 def padded_samples(nsamples: int, tile: int = TILE) -> int:

@@ -1,17 +1,19 @@
-"""Multi-host (multi-process) synthesis over DCN via jax.distributed.
+"""Multi-process synthesis via jax.distributed.
 
 The reference is strictly single-process (SURVEY §2 parallelism table);
-its TPU-native scale-out re-expresses the workload's two parallel axes
-over a *global* device mesh spanning hosts:
+this scale-out re-expresses the workload's two parallel axes over a
+*global* device mesh spanning processes:
 
 * ``'time'`` — consecutive epoch blocks are sharded across processes.
   Because every epoch's phases are affine in the sample index with exact
   float64 seeds from the host scenario engine, time shards need **no**
-  cross-host communication at all: DCN carries only the coordination
-  handshake, never samples.
-* ``'sat'``  — channels are sharded across each host's local devices and
-  partial I/Q is combined with an ``lax.psum`` that rides ICI only (the
-  mesh is laid out so 'sat' never crosses a process boundary).
+  cross-process communication at all: the network carries only the
+  coordination handshake, never samples.
+* ``'sat'``  — channels are sharded across each process's local devices
+  and partial I/Q is combined with an ``lax.psum`` that stays inside the
+  process (the mesh is laid out so 'sat' never crosses a process
+  boundary).  A GPU process holds one card, so there 'sat' has size 1;
+  the CPU tests give each process several virtual devices.
 
 Host-side scenario state (orbits, I/NAV, observables) is deterministic
 from (RINEX, g0, position), so every process runs the same cheap engine
@@ -22,8 +24,10 @@ the exact byte offset — the multi-host equivalent of the reference's
 single-writer FIFO (src/fifo.cpp), with the file system as the rendezvous.
 
 Process groups are bootstrapped with `jax.distributed.initialize`
-(coordinator + N processes, CPU or TPU backends alike); tests fake a
-2-host pod with two CPU processes of 4 virtual devices each (SURVEY §4e).
+(coordinator + N processes), one process per card: each process keeps
+the card its local rank names (`local_card_ids`), so no process reserves
+memory on another's card.  Tests fake a 2-host pod with two CPU
+processes of 4 virtual devices each (SURVEY §4e).
 """
 
 from __future__ import annotations
@@ -67,6 +71,31 @@ def maybe_initialize_from_env() -> bool:
     return True
 
 
+def _host_card_count() -> int:
+    """NVIDIA cards on this host, from their device nodes (0 if none)."""
+    return sum(1 for d in Path("/dev").glob("nvidia*") if d.name[6:].isdigit())
+
+
+def local_card_ids(process_id: int, env=os.environ) -> list[int] | None:
+    """The one card (index among the host's visible cards) this process
+    keeps, or None where the launcher already chose: `JAX_LOCAL_DEVICE_IDS`
+    set, or `CUDA_VISIBLE_DEVICES` naming at most one card.
+
+    The local rank is the launcher's `LOCAL_RANK` when set (several
+    hosts), else the process id modulo the host's visible cards (one
+    host)."""
+    if env.get("JAX_LOCAL_DEVICE_IDS"):
+        return None
+    visible = [v for v in env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+               if v.strip()]
+    if "CUDA_VISIBLE_DEVICES" in env and len(visible) <= 1:
+        return None
+    if env.get("LOCAL_RANK"):
+        return [int(env["LOCAL_RANK"])]
+    n = len(visible) or _host_card_count()
+    return [process_id % n if n else process_id]
+
+
 def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
     import jax
 
@@ -74,13 +103,15 @@ def initialize(coordinator: str, num_processes: int, process_id: int) -> None:
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        # ignored by the CPU backend
+        local_device_ids=local_card_ids(process_id),
     )
 
 
 def global_mesh():
     """('time', 'sat') mesh over all global devices: one 'time' row per
     process (its local devices form the 'sat' axis), so the channel psum
-    stays intra-host/ICI and time shards are host-local."""
+    stays inside a process and time shards are process-local."""
     import jax
     from jax.sharding import Mesh
 
@@ -91,47 +122,36 @@ def global_mesh():
     return Mesh(grid, axis_names=("time", "sat"))
 
 
-def _global_shard(inputs: dict, mesh, engine: str):
+def _global_shard(inputs: dict, mesh):
     """Build global jax.Arrays for the (K,p) inputs from identical
     host-side numpy on every process (only addressable shards are
     materialized)."""
     import jax
-    from jax.sharding import NamedSharding, PartitionSpec as P
+    from jax.sharding import NamedSharding
 
-    from .mesh import KP_ORDER
-
-    bc = P("time", "sat")
-    specs = dict(
-        cp0=bc, two_a=bc, mu=bc, carr0=bc, fc=bc, fc_k=bc,
-        sym_win=P("time", "sat", None),
-        pilot_win=P("time", "sat", None),
-    )
-    table_key = "vpack_rs" if engine == "pallas" else "vpack"
-    specs[table_key] = P("sat", None, None)
-    order = KP_ORDER + (table_key,)
+    from .mesh import KP_ORDER, KP_SPECS
 
     out = []
-    for k in order:
+    for k in KP_ORDER:
         arr = np.asarray(inputs[k])
-        sh = NamedSharding(mesh, specs[k])
+        sh = NamedSharding(mesh, KP_SPECS[k])
         out.append(
             jax.make_array_from_callback(arr.shape, sh, lambda idx, a=arr: a[idx])
         )
     return tuple(out)
 
 
-def synth_batch_kp_distributed(batch, nsamples, mesh=None, engine=None):
+def synth_batch_kp_distributed(batch, nsamples, mesh=None):
     """Multi-process production path.  Every process passes the SAME
     EpochBatch (deterministic host engine); returns this process's
     addressable (epoch_index, iq_rows) segments, epoch-major int16
     (n, 2*nsamples) pieces ready for offset writes."""
     import jax
 
-    from ..ops.synth_kp import P_GRID, default_engine, prepare_kp_inputs
+    from ..ops.synth_kp import P_GRID, prepare_kp_inputs
     from .mesh import sharded_kp_fn
 
     mesh = mesh if mesh is not None else global_mesh()
-    engine = engine or default_engine()
     n_sat = mesh.shape["sat"]
     n_time = mesh.shape["time"]
     B_real = batch.f_code.shape[0]
@@ -141,13 +161,12 @@ def synth_batch_kp_distributed(batch, nsamples, mesh=None, engine=None):
     inputs = prepare_kp_inputs(
         batch, nsamples, pad_epochs=pad if pad != B_real else None,
         compact=False if n_sat > 1 else True,
-        pack_g=engine == "pallas",
     )
     B, C = inputs["cp0"].shape
     assert C % n_sat == 0, f"channels {C} not divisible by sat axis {n_sat}"
 
-    fn = sharded_kp_fn(mesh, n_k=nsamples // P_GRID, engine=engine)
-    out = fn(*_global_shard(inputs, mesh, engine))  # global (B, n, 2)
+    fn = sharded_kp_fn(mesh, n_k=nsamples // P_GRID)
+    out = fn(*_global_shard(inputs, mesh))  # global (B, n, 2)
 
     segments = []
     seen = set()
@@ -188,7 +207,7 @@ def barrier(name: str = "galileo") -> None:
 
 def generate_file_distributed(
     engine, outfile: str | Path, block_epochs: int = 8,
-    nsamples: int | None = None, synth_engine: str | None = None,
+    nsamples: int | None = None,
 ) -> int:
     """Offline multi-host file generation: every process runs the same
     deterministic ScenarioEngine, each synthesizes its time shard of every
@@ -208,9 +227,7 @@ def generate_file_distributed(
     barrier("presize")
     base = 0
     for batch in engine.batches(block_epochs):
-        segs = synth_batch_kp_distributed(
-            batch, nsamples, mesh=mesh, engine=synth_engine
-        )
+        segs = synth_batch_kp_distributed(batch, nsamples, mesh=mesh)
         write_segments(outfile, segs, nsamples, base_epoch=base)
         base += batch.f_code.shape[0]
     barrier("written")

@@ -1,13 +1,13 @@
-"""Multi-chip sharding of the synthesis pipeline.
+"""Multi-device sharding of the synthesis pipeline.
 
 The reference is a 3-thread single-process program; its two implicit
-parallel axes (summation over satellites, sequential time) map onto a TPU
+parallel axes (summation over satellites, sequential time) map onto a
 device mesh as (reference: src/galileo-sdr.cpp:481-539; SURVEY §2
 parallelism table):
 
 * axis ``'sat'``   — channels are sharded; each device synthesizes the
   partial I/Q of its channel subset and the full signal is an
-  ``lax.psum`` over ICI.  This is the reference's per-sample
+  ``lax.psum`` over the devices.  This is the reference's per-sample
   ``i_acc += ip`` accumulation re-expressed as a collective.
 * axis ``'time'``  — sample tiles within an epoch block are sharded;
   because the host seeds every tile with an exact float64 phase base
@@ -16,7 +16,8 @@ parallelism table):
   reference carries NCO state sequentially across samples; the analytic
   seeding removes that dependency.)
 
-Works on any `jax.sharding.Mesh` — real TPU slices or the CPU
+Works on any `jax.sharding.Mesh` — GPUs joined all to all, where the
+mesh shape follows the algorithm alone, or the CPU
 `--xla_force_host_platform_device_count` mesh the tests use.
 """
 
@@ -27,12 +28,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
 
 from ..constants import NUM_IQ_SAMPLES
 from ..ops.synth import synth_accum
@@ -128,71 +125,57 @@ def synth_batch_sharded(
 # --- factorized (K,p) engine sharding (production path) ---------------
 
 
-def sharded_kp_fn(mesh: Mesh, n_k: int, engine: str = "xla",
-                  cboc: bool = False):
+def sharded_kp_fn(mesh: Mesh, n_k: int, cboc: bool = False):
     """Mesh-sharded factorized synthesis: epochs over 'time', channels
-    over 'sat'; per-device partial channel sums combined with a psum over
-    ICI, exactly the reference's i_acc accumulation as a collective.
-
-    engine='pallas' runs the fused VMEM kernel per shard (TPU meshes);
-    'xla' runs everywhere (the CPU dry-run mesh uses it).  cboc=True
-    threads the replicated (alpha, beta) CBOC weights through to the
-    engines (ops/synth_kp.py cboc branch)."""
-    from ..ops.synth_kp import accum_kp
-
-    table_key = "vpack_rs" if engine.startswith("pallas") else "vpack"
+    over 'sat'; per-device partial channel sums combined with a psum,
+    exactly the reference's i_acc accumulation as a collective.
+    cboc=True threads the replicated (alpha, beta) CBOC weights through
+    to the engine (ops/synth_kp.py cboc branch)."""
+    from ..ops.synth_kp import synth_accum_kp
 
     def local_step(cp0, two_a, mu, carr0, fc, fc_k, sym_win, pilot_win,
                    vpack, *ab):
         inputs = {
             "cp0": cp0, "two_a": two_a, "mu": mu, "carr0": carr0,
             "fc": fc, "fc_k": fc_k, "sym_win": sym_win,
-            "pilot_win": pilot_win, table_key: vpack,
+            "pilot_win": pilot_win, "vpack": vpack,
         }
         if ab:
             inputs["cboc_ab"] = ab[0]
-        acc = accum_kp(inputs, n_k=n_k, engine=engine)
+        acc = synth_accum_kp(inputs, n_k=n_k)
         acc = jax.lax.psum(acc, axis_name="sat")
         return jnp.trunc(acc).astype(jnp.int16)
 
-    bc = P("time", "sat")
-    in_specs = (bc, bc, bc, bc, bc, bc,
-                P("time", "sat", None),  # sym_win
-                P("time", "sat", None),  # pilot_win
-                P("sat", None, None))    # vpack / vpack_rs
+    in_specs = tuple(KP_SPECS[k] for k in KP_ORDER)
     if cboc:
-        in_specs = in_specs + (P(None),)  # replicated (alpha, beta)
-    out_spec = P("time", None, None)
-    # check_vma=False: pallas_call outputs carry no varying-mesh-axes
-    # annotation, which the vma checker (jax >= 0.5 shard_map) rejects
-    try:
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_spec, check_vma=False)
-    except TypeError:  # older jax: kwarg was check_rep
-        fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
-                       out_specs=out_spec, check_rep=False)
+        in_specs = in_specs + (KP_SPECS["cboc_ab"],)
+    # check_vma=False: the engine's channel scan starts from a constant
+    # zero carry, which the varying-mesh-axes checker rejects against
+    # the per-shard body output
+    fn = shard_map(local_step, mesh=mesh, in_specs=in_specs,
+                   out_specs=P("time", None, None), check_vma=False)
     return jax.jit(fn)
 
 
 KP_ORDER = ("cp0", "two_a", "mu", "carr0", "fc", "fc_k",
-            "sym_win", "pilot_win")
+            "sym_win", "pilot_win", "vpack")
+_BC = P("time", "sat")  # per-(epoch, channel) scalars
+KP_SPECS = dict(
+    cp0=_BC, two_a=_BC, mu=_BC, carr0=_BC, fc=_BC, fc_k=_BC,
+    sym_win=P("time", "sat", None),
+    pilot_win=P("time", "sat", None),
+    vpack=P("sat", None, None),
+    cboc_ab=P(None),  # replicated (alpha, beta)
+)
 
 
-def shard_kp_inputs(inputs: dict, mesh: Mesh, engine: str = "xla") -> tuple:
-    bc = P("time", "sat")
-    specs = dict(
-        cp0=bc, two_a=bc, mu=bc, carr0=bc, fc=bc, fc_k=bc,
-        sym_win=P("time", "sat", None),
-        pilot_win=P("time", "sat", None),
-    )
-    table_key = "vpack_rs" if engine.startswith("pallas") else "vpack"
-    order = KP_ORDER + (table_key,)
-    specs[table_key] = P("sat", None, None)
+def shard_kp_inputs(inputs: dict, mesh: Mesh) -> tuple:
+    order = KP_ORDER
     if "cboc_ab" in inputs:
         order = order + ("cboc_ab",)
-        specs["cboc_ab"] = P(None)
     return tuple(
-        jax.device_put(inputs[k], NamedSharding(mesh, specs[k])) for k in order
+        jax.device_put(inputs[k], NamedSharding(mesh, KP_SPECS[k]))
+        for k in order
     )
 
 
@@ -201,24 +184,20 @@ def synth_batch_kp_sharded(
     mesh: Mesh,
     nsamples: int = NUM_IQ_SAMPLES,
     pad_epochs: int | None = None,
-    engine: str | None = None,
 ) -> np.ndarray:
     """Sharded production path: batch -> (B, 2*nsamples) int16 on host."""
-    from ..ops.synth_kp import P_GRID, default_engine, prepare_kp_inputs
+    from ..ops.synth_kp import P_GRID, prepare_kp_inputs
 
-    engine = engine or default_engine()
     n_sat = mesh.shape["sat"]
     n_time = mesh.shape["time"]
     inputs = prepare_kp_inputs(
         batch, nsamples, pad_epochs=pad_epochs,
         compact=False if n_sat > 1 else True,
-        pack_g=engine.startswith("pallas"),
     )
     B, C = inputs["cp0"].shape
     assert C % n_sat == 0, f"channels {C} not divisible by sat axis {n_sat}"
     assert B % n_time == 0, f"epochs {B} not divisible by time axis {n_time}"
 
-    fn = sharded_kp_fn(mesh, n_k=nsamples // P_GRID, engine=engine,
-                       cboc="cboc_ab" in inputs)
-    out = fn(*shard_kp_inputs(inputs, mesh, engine=engine))  # (B, n, 2)
+    fn = sharded_kp_fn(mesh, n_k=nsamples // P_GRID, cboc="cboc_ab" in inputs)
+    out = fn(*shard_kp_inputs(inputs, mesh))  # (B, n, 2)
     return np.asarray(out).reshape(out.shape[0], -1)[:, : 2 * nsamples]

@@ -26,6 +26,11 @@ from .constants import (
 )
 from .gnss_time import DateTime, GalTime, date2gal
 
+# The navigation file every in-repo caller uses (CLI examples, tests,
+# bench.py, chip_smoke.py): 25 broadcast Galileo ephemerides of
+# 2022-02-20, re-referenced to 08:00-12:00 GST by tools/gen_nav_rinex.py.
+NAV_FILE = Path(__file__).resolve().parent / "data" / "gal_20feb2022.rnx"
+
 
 @dataclass
 class IonoUtc:

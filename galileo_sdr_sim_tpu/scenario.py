@@ -1,14 +1,14 @@
 """Scenario engine: turns (RINEX, position stream, start time) into dense
-per-epoch channel state tables for the TPU synthesizer.
+per-epoch channel state tables for the device synthesizer.
 
-This is the TPU-first re-architecture of the reference's orchestrator
+This is the re-architecture of the reference's orchestrator
 (reference: src/galileo-sdr.cpp:58-647).  The reference interleaves scalar
 observable updates with a per-sample NCO loop; here the host engine
 advances the *slow* state (orbits, observables, I/NAV pages, channel
 allocation — 10 Hz cadence) and emits, per 0.1 s epoch, an
 `EpochStateTable` whose phases are affine in the sample index.  The device
 consumes whole blocks of epochs and synthesizes all samples in parallel
-(ops/synth.py, ops/pallas_synth.py).
+(ops/synth_kp.py, ops/synth.py).
 
 Timing parity notes (galileo-sdr.cpp):
 * dt = 0.10000002314 s while the sample clock advances exactly

@@ -1,6 +1,6 @@
 // Real-time I/Q ring buffer with a background consumer thread.
 //
-// Native transport layer of the TPU Galileo simulator: decouples the
+// Native transport layer of the Galileo simulator: decouples the
 // bursty device-drain producer from a rate-steady consumer (file
 // descriptor, UDP socket, or SDR driver), the same role the reference
 // plays with its pthread FIFO + tx_task (reference: src/fifo.cpp,

@@ -29,7 +29,7 @@ assert jax.process_count() == nproc, jax.process_count()
 assert len(jax.devices()) == 4 * nproc, len(jax.devices())
 
 from galileo_sdr_sim_tpu.gnss_time import DateTime, date2gal
-from galileo_sdr_sim_tpu.rinex import read_rinex_v3
+from galileo_sdr_sim_tpu.rinex import NAV_FILE, read_rinex_v3
 from galileo_sdr_sim_tpu.scenario import (
     PositionProvider,
     ScenarioEngine,
@@ -38,7 +38,7 @@ from galileo_sdr_sim_tpu.scenario import (
 
 NS = 10400  # one full (8 x 1300) row cycle per epoch
 
-nav = read_rinex_v3("/root/reference/rinex_files/20feb2022.rnx")
+nav = read_rinex_v3(NAV_FILE)
 g0 = scenario_start_time(nav, date2gal(DateTime(2022, 2, 20, 8, 0, 1)))
 eng = ScenarioEngine(
     nav,
@@ -51,7 +51,7 @@ assert batch.f_code.shape[0] == 4
 
 mesh = D.global_mesh()
 assert mesh.shape == {"time": nproc, "sat": 4}
-segments = D.synth_batch_kp_distributed(batch, NS, mesh=mesh, engine="xla")
+segments = D.synth_batch_kp_distributed(batch, NS, mesh=mesh)
 
 # each process must hold exactly its 4/nproc epochs, starting at pid*2
 assert sum(rows.shape[0] for _, rows in segments) == 4 // nproc, segments
@@ -72,7 +72,7 @@ eng2 = ScenarioEngine(
     duration_s=0.7,
 )
 n = D.generate_file_distributed(
-    eng2, outfile + ".full", block_epochs=3, nsamples=NS, synth_engine="xla"
+    eng2, outfile + ".full", block_epochs=3, nsamples=NS
 )
 assert n == 6, n
 print(f"WORKER{pid} OK", flush=True)

@@ -1,5 +1,5 @@
 // I/NAV A/B harness: drives the *reference simulator's own encoder*
-// (compiled unmodified from /root/reference/src/inav-msg.cpp +
+// (compiled unmodified from $GALILEO_UPSTREAM_DIR/src/inav-msg.cpp +
 // datatypes.cpp) to emit golden page pairs for arbitrary ephemerides and
 // epochs.  Output is consumed by tools/gen_inav_fixture.py to produce
 // tests/data/inav_ref_pages.json, which tests/test_inav_ref_ab.py diffs
@@ -7,13 +7,13 @@
 //
 // Only this file is ours; the encoder under test is the reference's.
 // Build (see tools/gen_inav_fixture.py):
-//   g++ -O1 -I tests/ref_harness/shim harness.cpp \
-//       /root/reference/src/inav-msg.cpp /root/reference/src/datatypes.cpp
+//   g++ -O1 -I tests/ref_harness/shim -I $GALILEO_UPSTREAM_DIR/include harness.cpp \
+//       $GALILEO_UPSTREAM_DIR/src/inav-msg.cpp $GALILEO_UPSTREAM_DIR/src/datatypes.cpp
 //
 // Protocol: stdin lines "key value" set ephemeris/iono fields (keys match
 // structures.h names; "tow" lines emit one page for that epoch).
 
-#include "../../../reference/include/galileo-sdr.h"
+#include "galileo-sdr.h"  // upstream include/, on the -I path
 
 #include <cstdio>
 #include <cstring>

@@ -45,8 +45,7 @@ def _direct_reference(batches):
     his = []
     for batch in batches:
         phases = [
-            synth_batch_kp_host(phase_shift_batch(batch, j), NS,
-                                engine="xla")
+            synth_batch_kp_host(phase_shift_batch(batch, j), NS)
             for j in range(OS)
         ]
         B = batch.f_code.shape[0]
@@ -73,7 +72,7 @@ def test_polyphase_equals_direct_highrate_filter(blocks):
     cache: dict = {}
     for batch in blocks:
         out, state = synth_block_cboc_bandlimited(
-            batch, NS, pad_epochs=4, engine="xla", code_cache=cache,
+            batch, NS, pad_epochs=4, code_cache=cache,
             state=state,
         )
         out = np.asarray(out)[: batch.f_code.shape[0]]
@@ -117,10 +116,10 @@ def test_bandlimit_suppresses_folded_sc6(blocks):
     batch = blocks[0]
     state = initial_state()
     out, _ = synth_block_cboc_bandlimited(
-        batch, NS, pad_epochs=4, engine="xla", state=state
+        batch, NS, pad_epochs=4, state=state
     )
     bl = np.asarray(out)[0]
-    pw = synth_batch_kp_host(batch, NS, engine="xla")[0]
+    pw = synth_batch_kp_host(batch, NS)[0]
 
     def edge_ratio(x):
         cx = x[0::2].astype(np.float64) + 1j * x[1::2]
@@ -188,7 +187,7 @@ def test_streaming_synthesizer_bandlimit_path(nav, g0):
     ref = []
     for batch in eng2.batches(4):
         out, state = synth_block_cboc_bandlimited(
-            batch, NS, pad_epochs=4, engine="xla", code_cache=cache,
+            batch, NS, pad_epochs=4, code_cache=cache,
             state=state,
         )
         ref.append(np.asarray(out)[: batch.f_code.shape[0]].reshape(-1))
@@ -214,10 +213,10 @@ def test_bandlimited_stream_acquires(blocks):
     batch = blocks[0]
     state = initial_state()
     out, _ = synth_block_cboc_bandlimited(
-        batch, NS, pad_epochs=4, engine="xla", state=state
+        batch, NS, pad_epochs=4, state=state
     )
     bl = np.asarray(out)[:2].reshape(-1)  # 2 epochs: 8 ms coherent
-    pw = synth_batch_kp_host(batch, NS, engine="xla")[:2].reshape(-1)
+    pw = synth_batch_kp_host(batch, NS)[:2].reshape(-1)
     act = np.flatnonzero(batch.prn > 0)
     prn = int(batch.prn[act[0]])
     fd = float(batch.f_carr[0, act[0]])
@@ -343,10 +342,10 @@ def test_bandlimit_applies_gain(blocks):
     amplitude drops relative to the ungained stream."""
     batch = blocks[0]
     out_ng, _ = synth_block_cboc_bandlimited(
-        batch, NS, pad_epochs=4, engine="xla", state=initial_state()
+        batch, NS, pad_epochs=4, state=initial_state()
     )
     out_g, _ = synth_block_cboc_bandlimited(
-        batch, NS, pad_epochs=4, engine="xla", state=initial_state(),
+        batch, NS, pad_epochs=4, state=initial_state(),
         apply_gain=True,
     )
     a = np.abs(np.asarray(out_ng)[0].astype(np.int32)).mean()
@@ -377,3 +376,25 @@ def test_streaming_bandlimit_forwards_apply_gain(nav, g0):
     a = np.abs(run(False).astype(np.int32)).mean()
     b = np.abs(run(True).astype(np.int32)).mean()
     assert b < 0.98 * a, (a, b)
+
+
+def test_filter_highest_precision_matches_float64_reference():
+    """The f32 polyphase conv (Precision.HIGHEST) against a float64
+    NumPy convolution truncated to int16: at most 1 LSB, almost always
+    identical (f32 sums of 12 x 33 taps against the exact float64 sum)."""
+    import jax.numpy as jnp
+
+    from galileo_sdr_sim_tpu.ops.bandlimit import OS, V0, _filter_block
+    from galileo_sdr_sim_tpu.ops.oracle import bandlimit_filter_oracle
+
+    rng = np.random.default_rng(3)
+    stacked = rng.normal(0, 900, (OS, 3, 2 * 2600)).astype(np.int16)
+    hist = rng.normal(0, 600, (2, OS, 2 * V0)).astype(np.float32)
+    out, new_hist = _filter_block(
+        jnp.asarray(stacked), jnp.asarray(hist), jnp.int32(2)
+    )
+    ref, ref_hist = bandlimit_filter_oracle(stacked, hist, 2)
+    d = np.abs(np.asarray(out).astype(np.int32) - ref.astype(np.int32))
+    assert d.max() <= 1, d.max()
+    assert (d == 0).mean() >= 0.999, (d == 0).mean()
+    np.testing.assert_allclose(np.asarray(new_hist), ref_hist, atol=1e-3)

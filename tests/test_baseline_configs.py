@@ -4,7 +4,7 @@ long-duration soak and the live-position latency guarantee.
 
 Reference behaviors pinned here:
 * config 1: the README's canonical static file-sink run
-  (/root/reference/README.md:49-60: `-l -6,51,100 -e <rinex> -U 1 -b 1`).
+  (upstream README.md:49-60: `-l -6,51,100 -e <rinex> -U 1 -b 1`).
 * config 2: all visible SVs of 20feb2022.rnx allocated at the tv/
   capture epoch (src/channel.cpp:21-119 allocation over MAX_SAT).
 * config 3: live I/NAV generation under `-T` TOC/TOE overwrite
@@ -28,9 +28,10 @@ import numpy as np
 import pytest
 
 from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES
+from galileo_sdr_sim_tpu.rinex import NAV_FILE
 from galileo_sdr_sim_tpu.scenario import PositionProvider, ScenarioEngine
 
-RINEX = "/root/reference/rinex_files/20feb2022.rnx"
+RINEX = str(NAV_FILE)
 STATIC = np.array([42.3601, -71.0589, 100.0])
 
 
@@ -223,7 +224,8 @@ def test_live_position_latency_one_epoch(nav, g0):
     so it must match a from-scratch engine placed at the new position."""
     from galileo_sdr_sim_tpu.io.udp import UdpServers
 
-    ports = (17533, 17531, 17532)
+    # ports of their own: test_bit_relay runs 17531-17533 in parallel
+    ports = (17733, 17731, 17732)
     servers = UdpServers(STATIC, ports=ports).start()
     try:
         eng = ScenarioEngine(

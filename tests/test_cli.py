@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 from galileo_sdr_sim_tpu.cli import build_parser, load_user_motion
+from galileo_sdr_sim_tpu.rinex import NAV_FILE
 
 
 def test_flag_parsing():
@@ -54,7 +55,7 @@ def test_model_flag(tmp_path):
 
     out = tmp_path / "cboc.ishort"
     rc = main([
-        "-e", "/root/reference/rinex_files/20feb2022.rnx",
+        "-e", str(NAV_FILE),
         "-U", "1", "-b", "1", "-d", "0.3", "-o", str(out),
         "-t", "2022/02/20,08:00:01", "--model", "cboc",
     ])
@@ -94,7 +95,7 @@ def test_cli_relay_timeout_fallback(tmp_path):
 
     out = tmp_path / "relay.ishort"
     rc = main([
-        "-e", "/root/reference/rinex_files/20feb2022.rnx",
+        "-e", str(NAV_FILE),
         "-t", "2022/02/20,08:00:01", "-d", "0.5", "-U", "1",
         "-o", str(out), "--relay-timeout", "0.2", "--block-epochs", "2",
     ])
@@ -130,7 +131,7 @@ def test_cli_relay_bits_received(tmp_path):
     try:
         out = tmp_path / "relay2.ishort"
         rc = main([
-            "-e", "/root/reference/rinex_files/20feb2022.rnx",
+            "-e", str(NAV_FILE),
             "-t", "2022/02/20,08:00:01", "-d", "0.4", "-U", "1",
             "-o", str(out), "--relay-timeout", "30", "--block-epochs", "2",
         ])

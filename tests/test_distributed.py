@@ -57,14 +57,14 @@ def test_two_process_pod_matches_single(tmp_path, batch_1s):
     # single-process oracle on the same deterministic scenario
     from galileo_sdr_sim_tpu.gnss_time import DateTime, date2gal
     from galileo_sdr_sim_tpu.ops.synth_kp import synth_batch_kp_host
-    from galileo_sdr_sim_tpu.rinex import read_rinex_v3
+    from galileo_sdr_sim_tpu.rinex import NAV_FILE, read_rinex_v3
     from galileo_sdr_sim_tpu.scenario import (
         PositionProvider,
         ScenarioEngine,
         scenario_start_time,
     )
 
-    nav = read_rinex_v3("/root/reference/rinex_files/20feb2022.rnx")
+    nav = read_rinex_v3(NAV_FILE)
     g0 = scenario_start_time(nav, date2gal(DateTime(2022, 2, 20, 8, 0, 1)))
     eng = ScenarioEngine(
         nav,
@@ -73,7 +73,7 @@ def test_two_process_pod_matches_single(tmp_path, batch_1s):
         duration_s=0.5,
     )
     batch = next(eng.batches(4))
-    expected = synth_batch_kp_host(batch, NS, engine="xla")  # (4, 2*NS)
+    expected = synth_batch_kp_host(batch, NS)  # (4, 2*NS)
 
     got = np.fromfile(out, dtype=np.int16).reshape(4, 2 * NS)
     # psum association bound, stated centrally in parallel/distributed.py
@@ -94,9 +94,31 @@ def test_two_process_pod_matches_single(tmp_path, batch_1s):
         duration_s=0.7,
     )
     expected2 = np.concatenate(
-        [synth_batch_kp_host(b, NS, engine="xla") for b in eng2.batches(3)]
+        [synth_batch_kp_host(b, NS) for b in eng2.batches(3)]
     )
     got2 = np.fromfile(str(out) + ".full", dtype=np.int16).reshape(6, 2 * NS)
     frac2 = (got2 == expected2).mean()
     assert frac2 > PSUM_SAMPLE_IDENTITY_BOUND, f"only {frac2:.4%} samples identical"
     assert np.max(np.abs(got2.astype(np.int32) - expected2.astype(np.int32))) <= PSUM_MAX_LSB
+
+
+@pytest.mark.parametrize(
+    "env, pid, want",
+    [
+        ({}, 2, [2]),  # one host: the process id among the host's cards
+        ({"CUDA_VISIBLE_DEVICES": "0,1,2,3"}, 6, [2]),  # modulo the cards
+        ({"CUDA_VISIBLE_DEVICES": "4,5"}, 1, [1]),  # index among visible
+        ({"CUDA_VISIBLE_DEVICES": "0,1,2,3", "LOCAL_RANK": "3"}, 7, [3]),
+        ({"LOCAL_RANK": "1"}, 5, [1]),  # several hosts: launcher's rank
+        ({"CUDA_VISIBLE_DEVICES": "2"}, 3, None),  # launcher chose a card
+        ({"CUDA_VISIBLE_DEVICES": ""}, 0, None),  # no card visible
+        ({"JAX_LOCAL_DEVICE_IDS": "1"}, 0, None),  # JAX reads it itself
+    ],
+)
+def test_local_card_ids(env, pid, want, monkeypatch):
+    """Each process keeps one card, named by its local rank, unless the
+    launcher already chose its card."""
+    from galileo_sdr_sim_tpu.parallel import distributed
+
+    monkeypatch.setattr(distributed, "_host_card_count", lambda: 4)
+    assert distributed.local_card_ids(pid, env) == want

@@ -69,7 +69,7 @@ def motion_scene(nav):
     for batch in eng.batches(8):
         if batch.f_code.shape[0] != 8:
             break  # keep one compile (see conftest.pvt_scene)
-        iq.append(synth_batch_kp_host(batch, NUM_IQ_SAMPLES, engine="xla"))
+        iq.append(synth_batch_kp_host(batch, NUM_IQ_SAMPLES))
     assert len(iq) * 8 * 0.1 >= 18.0, f"scene too short: {len(iq) * 0.8:.1f} s"
     x16 = np.concatenate(iq).reshape(-1).astype(np.int16)
     return traj, x16

@@ -36,7 +36,7 @@ def scene(nav, g0):
     )
     tabs, iq, total = [], [], 0
     for batch in eng.batches(4):
-        iq.append(synth_batch_kp_host(batch, NUM_IQ_SAMPLES, engine="xla"))
+        iq.append(synth_batch_kp_host(batch, NUM_IQ_SAMPLES))
         tabs.append(batch)
         total += batch.f_code.shape[0]
         if total >= N_EPOCHS:

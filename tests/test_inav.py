@@ -12,7 +12,7 @@ import pytest
 from galileo_sdr_sim_tpu import inav
 from galileo_sdr_sim_tpu.gnss_time import GalTime
 
-from conftest import TV_DIR
+from conftest import TV_DIR, needs_tv
 
 
 def _tv_rows(prn, limit=60):
@@ -68,6 +68,7 @@ def test_frame_structure():
     assert list(frame[:10]) == [0, 1, 0, 1, 1, 0, 0, 0, 0, 0]
 
 
+@needs_tv
 def test_word_schedule_matches_golden():
     """Word-type sequence of real captures follows WordAllocationE1."""
     for tow, week, bits in _tv_rows(1):
@@ -78,6 +79,7 @@ def test_word_schedule_matches_golden():
             assert wt_field == expected, (tow, wt_field, expected)
 
 
+@needs_tv
 def test_golden_crc_all_prns():
     """Our CRC24Q + page layout reproduce every captured page's CRC."""
     for prn in (1, 2, 10, 11, 12, 13, 15, 19, 20, 21):

@@ -26,7 +26,8 @@ from galileo_sdr_sim_tpu.inav import (
 )
 from galileo_sdr_sim_tpu.rx import decode_almanac_word, decode_page_pair
 
-TV_DIR = "/root/reference/tv/20_FEB_2022_GST_08_00_01"
+from conftest import TV_DIR, needs_tv
+
 I_REF = 56.0 / 180.0 * np.pi
 
 
@@ -49,6 +50,7 @@ def _tv_pages(max_rows=400):
     return out
 
 
+@needs_tv
 def test_live_sky_layout_matches_rinex(nav):
     """The field layout used for emission is the one the sky transmits:
     decoded tv/ almanac orbits match RINEX ephemerides to quantization."""

@@ -14,11 +14,12 @@ import json
 from pathlib import Path
 
 import numpy as np
-import pytest
 
 from galileo_sdr_sim_tpu.gnss_time import GalTime
 from galileo_sdr_sim_tpu.inav import generate_inav_page, word_type_for
 from galileo_sdr_sim_tpu.rinex import Ephemeris, IonoUtc
+
+from conftest import needs_upstream_src
 
 FIXTURE = Path(__file__).parent / "data" / "inav_ref_pages.json"
 
@@ -79,10 +80,7 @@ def test_pages_bit_exact_vs_reference_binary():
     assert not mismatches, f"pages differ from reference binary: {mismatches}"
 
 
-@pytest.mark.skipif(
-    not Path("/root/reference/src/inav-msg.cpp").exists(),
-    reason="reference tree not available",
-)
+@needs_upstream_src
 def test_fixture_is_reproducible_from_reference():
     """The checked-in fixture regenerates identically from the reference
     sources (guards against a stale or hand-edited fixture)."""

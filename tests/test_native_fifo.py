@@ -1,7 +1,7 @@
 """Native C++ ring-buffer transport: integrity, backpressure, EOF.
 
 Pins the behavior of native/iqring.cpp + io/native_fifo.py, the
-TPU-native replacement for the reference's pthread FIFO + tx_task pair
+replacement for the reference's pthread FIFO + tx_task pair
 (reference src/fifo.cpp:14-62, src/main.cpp:55-127): a bounded ring that
 blocks the producer when the consumer falls behind (no sample loss, no
 overwrite), and drains fully at EOF.

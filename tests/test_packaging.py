@@ -2,7 +2,7 @@
 package — constant tables as package data, the native I/Q ring as a
 built C++ extension, console entry point — and the README quickstart
 works from OUTSIDE the checkout (VERDICT r3 missing #4; reference
-analogue: the CMake install of /root/reference/CMakeLists.txt)."""
+analogue: the upstream project's CMake install)."""
 
 import subprocess
 import sys
@@ -31,6 +31,7 @@ def test_package_contents(installed):
     pkg = installed / "galileo_sdr_sim_tpu"
     assert (pkg / "data" / "e1_codes.npz").exists()
     assert (pkg / "data" / "nequick_tables.npz").exists()
+    assert (pkg / "data" / "gal_20feb2022.rnx").exists()
     assert list(pkg.glob("_iqring*.so")), "native ring extension missing"
     # console entry point generated
     assert list(installed.glob("bin/galileo-sdr-sim-tpu*")) or True
@@ -43,7 +44,8 @@ def test_quickstart_outside_checkout(installed, tmp_path):
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "from galileo_sdr_sim_tpu.cli import main\n"
-        "rc = main(['-e', '/root/reference/rinex_files/20feb2022.rnx',"
+        "from galileo_sdr_sim_tpu.rinex import NAV_FILE\n"
+        "rc = main(['-e', str(NAV_FILE),"
         " '-l', '42.3601,-71.0589,100', '-t', '2022/02/20,08:00:01',"
         " '-U', '1', '-b', '1', '-d', '0.3', '-o', %r])\n"
         "raise SystemExit(rc)\n" % (str(installed), str(out))

@@ -11,9 +11,8 @@ otherwise) and producer lead bounded by the ring capacity throughout
 (reference-style blocking-write backpressure).
 
 Run:  GALILEO_RT=1 python -m pytest tests/test_realtime_pacing.py -q
-on the TPU host (the gate exists because 60 s of synthesis is heavy for
-the CPU-only CI, where the direct engine runs ~0.5x realtime).  The
-latest run's margin is recorded in docs/realtime.md.
+on a GPU host (the gate exists because 60 s of synthesis is heavy for
+the CPU-only CI, where the direct engine runs ~0.5x realtime).
 """
 
 import os
@@ -32,7 +31,7 @@ from galileo_sdr_sim_tpu.constants import (
 pytestmark = pytest.mark.skipif(
     not os.environ.get("GALILEO_RT"),
     reason="real-time pacing run synthesizes >= 60 s of signal against a "
-    "DAC-paced consumer; run with GALILEO_RT=1 (TPU host)",
+    "DAC-paced consumer; run with GALILEO_RT=1 (GPU host)",
 )
 
 DURATION_S = float(os.environ.get("GALILEO_RT_DURATION", "62"))
@@ -101,14 +100,14 @@ def test_realtime_pacing_contract():
     from galileo_sdr_sim_tpu.io.native_fifo import IqRing
     from galileo_sdr_sim_tpu.io.sinks import Sink
     from galileo_sdr_sim_tpu.io.stream import StreamingSynthesizer
-    from galileo_sdr_sim_tpu.rinex import read_rinex_v3
+    from galileo_sdr_sim_tpu.rinex import NAV_FILE, read_rinex_v3
     from galileo_sdr_sim_tpu.scenario import (
         PositionProvider,
         ScenarioEngine,
         scenario_start_time,
     )
 
-    nav = read_rinex_v3("/root/reference/rinex_files/20feb2022.rnx")
+    nav = read_rinex_v3(NAV_FILE)
     g0 = scenario_start_time(nav, date2gal(DateTime(2022, 2, 20, 8, 0, 1)))
     eng = ScenarioEngine(
         nav,

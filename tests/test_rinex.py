@@ -1,5 +1,6 @@
-"""RINEX parser tests against the shipped 20feb2022.rnx
-(reference: src/rinex.cpp)."""
+"""RINEX parser tests against the in-repo navigation file
+(rinex.NAV_FILE, written by tools/gen_nav_rinex.py; reference parser:
+src/rinex.cpp)."""
 
 import numpy as np
 
@@ -21,18 +22,19 @@ def test_header_iono(nav):
 
 
 def test_first_record_fields(nav):
-    # First E01 record in the file (E1-B source, flag 517).
+    # First E01 record in the file (E1-B source, flag 517): the
+    # 20feb2022.rnx record re-referenced to 08:00 GST.
     rec = nav.eph[0][0]
     assert rec.svid == 1
-    assert rec.af0 == -5.823274259456e-04
+    assert rec.af0 == -5.825908951920e-04
     assert rec.af1 == -7.318590178329e-12
-    assert rec.iode == 100
+    assert rec.iode == 48
     assert rec.crs == 3.634375e01
     assert rec.sqrta == 5.440600259781e03
-    assert rec.toe.sec == 597600.0
-    assert rec.week == 2197
+    assert rec.toe.sec == 28800.0
+    assert rec.week == 2198
     assert rec.flag == 517
-    assert rec.toc == date2gal(DateTime(2022, 2, 19, 22, 0, 0.0))
+    assert rec.toc == date2gal(DateTime(2022, 2, 20, 8, 0, 0.0))
     # derived terms
     assert np.isclose(rec.A, rec.sqrta**2)
     assert np.isclose(rec.sq1e2, np.sqrt(1 - rec.ecc**2))

@@ -2,7 +2,7 @@
 (reference hot loop: src/galileo-sdr.cpp:481-539).
 
 CPU-backend note: small tiles/sample counts keep XLA compile times sane;
-full-size blocks are exercised on TPU by bench.py.
+full-size blocks are exercised on the GPU by chip_smoke.py and bench.py.
 """
 
 import numpy as np

@@ -9,23 +9,26 @@ of the ICD) out of the reference C headers and packages them as NumPy
 archives committed to this repo, so the framework is standalone.
 
 Sources (data only):
-  /root/reference/include/constants.h   — E1B/E1C primary codes (50 PRNs x
+  $GALILEO_UPSTREAM_DIR/include/constants.h   — E1B/E1C primary codes (50 PRNs x
                                           1023 hex chars), CRC24Q table,
                                           512-entry sin/cos tables
-  /root/reference/include/galileo-sdr.h — NeQuick-G MODIP 39x39, monthly
+  $GALILEO_UPSTREAM_DIR/include/galileo-sdr.h — NeQuick-G MODIP 39x39, monthly
                                           F2[76x13]x2 / Fm3[49x9]x2 tables,
                                           Gauss-Kronrod K15/G7 nodes+weights
 
 Run:  python tools/extract_reference_tables.py
 """
 
+import os
 import re
 import sys
 from pathlib import Path
 
 import numpy as np
 
-REF = Path("/root/reference/include")
+# the upstream galileo-sdr-sim checkout this tool reads
+REF = Path(os.environ.get("GALILEO_UPSTREAM_DIR") or sys.exit(
+    "set GALILEO_UPSTREAM_DIR to the upstream galileo-sdr-sim checkout")) / "include"
 OUT = Path(__file__).resolve().parent.parent / "galileo_sdr_sim_tpu" / "data"
 
 

@@ -1,13 +1,23 @@
 """Generate the sample-level hot-loop A/B fixture from the compiled
 reference loop.
 
-tests/ref_harness/harness_obs.cpp carries a line-faithful transcription of
+tests/ref_harness/hotloop.cpp carries a line-faithful transcription of
 the reference's sequential NCO sample loop (galileo-sdr.cpp:481-539 —
 double NCO accumulation, 512-entry integer trig LUT, integer channel
 accumulation, C (short) truncation).  This script runs the repo's own
-scenario engine to produce real per-epoch channel states from
-20feb2022.rnx, drives the transcribed loop with those states, and stores
-the resulting int16 I/Q epochs in tests/data/hotloop_ref_iq.npz.
+scenario engine to produce real per-epoch channel states from the
+in-repo navigation file (rinex.NAV_FILE), drives the compiled loop with
+those states and the repository's extracted reference tables, and
+stores the resulting int16 I/Q epochs in tests/data/hotloop_ref_iq.npz.
+It needs only g++.
+
+What the fixture shares with the program, and what it does not: the
+scene states come from the program's scenario engine (its geometry is
+pinned separately, by tests/test_obs_ref_ab.py), and the code, LUT and
+secondary-code tables are the ones tools/extract_reference_tables.py
+took from the upstream headers.  The harness reads those tables raw and
+does its own chip mapping and BOC(1,1) expansion, so an error in the
+package's `codes` expansion or loaders would show as a mismatch.
 
 tests/test_hotloop_ref_ab.py then re-derives the same states (the engine
 is deterministic) and asserts the lut512 XLA engine reproduces the
@@ -19,7 +29,6 @@ NCO — see the test's docstring).
 Run from the repo root:  python tools/gen_hotloop_fixture.py
 """
 
-import hashlib
 import json
 import subprocess
 import sys
@@ -39,38 +48,45 @@ from galileo_sdr_sim_tpu.constants import NUM_IQ_SAMPLES, SAMP_RATE  # noqa: E40
 SCENE_EPOCHS = [1, 17, 305]
 
 
-def build_harness() -> Path:
-    from gen_obs_fixture import build_harness as _b  # same binary
+def build_harness(out_dir: Path) -> Path:
+    exe = out_dir / "hotloop"
+    subprocess.run(
+        ["g++", "-O1", "-o", str(exe),
+         str(REPO / "tests" / "ref_harness" / "hotloop.cpp")],
+        check=True,
+    )
+    return exe
 
-    return _b()
+
+def _raw_tables() -> dict:
+    """The extracted upstream tables, read straight from the archive and
+    not through the package's `codes` loaders, so the harness's own
+    codegen/sboc transcription stays an independent witness."""
+    with np.load(REPO / "galileo_sdr_sim_tpu" / "data" / "e1_codes.npz") as z:
+        return {k: z[k] for k in ("cos512", "sin512", "secondary",
+                                  "e1b_bits", "e1c_bits")}
+
+
+def tables_line() -> str:
+    """The LUTs and secondary-code bits the transcribed loop reads."""
+    t = _raw_tables()
+    vals = [*t["cos512"].tolist(), *t["sin512"].tolist(),
+            *t["secondary"].tolist()]
+    return "tables " + " ".join(str(int(v)) for v in vals)
+
+
+def code_bits(prn: int, component: str) -> str:
+    """The PRN's 4092 primary-code bits as '0'/'1' (1-based PRN)."""
+    key = {"E1B": "e1b_bits", "E1C": "e1c_bits"}[component]
+    return "".join(str(int(b)) for b in _raw_tables()[key][prn - 1])
 
 
 def scene_states():
-    """Deterministic scenario states at SCENE_EPOCHS (same scene as
-    tests/conftest.py engine_1s, longer horizon)."""
-    from galileo_sdr_sim_tpu.gnss_time import DateTime, date2gal
-    from galileo_sdr_sim_tpu.rinex import read_rinex_v3
-    from galileo_sdr_sim_tpu.scenario import (
-        PositionProvider,
-        ScenarioEngine,
-        scenario_start_time,
-    )
+    """Deterministic scenario states at SCENE_EPOCHS of the 08:00:01
+    scene (galileo_sdr_sim_tpu/scenes.py)."""
+    from galileo_sdr_sim_tpu import scenes
 
-    nav = read_rinex_v3("/root/reference/rinex_files/20feb2022.rnx")
-    g0 = scenario_start_time(nav, date2gal(DateTime(2022, 2, 20, 8, 0, 1)))
-    eng = ScenarioEngine(
-        nav,
-        PositionProvider(llh_deg=np.array([42.3601, -71.0589, 100.0])),
-        g0,
-        duration_s=(max(SCENE_EPOCHS) + 2) / 10.0,
-    )
-    want = set(SCENE_EPOCHS)
-    tabs = {}
-    for iumd, tab in enumerate(eng.epochs(), start=1):
-        if iumd in want:
-            tabs[iumd] = tab
-        if len(tabs) == len(want):
-            break
+    _, tabs = scenes.epochs_at(scenes.load_nav(), SCENE_EPOCHS)
     return [tabs[i] for i in SCENE_EPOCHS]
 
 
@@ -86,25 +102,19 @@ def harness_page_bits(tab, slot) -> str:
     return "".join(str(b) for b in page)
 
 
-def state_digest(tab) -> str:
-    h = hashlib.sha256()
-    for arr in (tab.prn, tab.f_carr, tab.f_code, tab.code_phase0,
-                tab.carr_phase0, tab.ibit0, tab.sym_win, tab.pilot_win):
-        h.update(np.ascontiguousarray(arr).tobytes())
-    return h.hexdigest()[:16]
-
-
 def run_reference_loop(exe: Path, tab) -> np.ndarray:
     delt = 1.0 / SAMP_RATE
-    lines = []
+    lines = [tables_line()]
     for slot in range(len(tab.prn)):
-        if tab.prn[slot] <= 0:
+        prn = int(tab.prn[slot])
+        if prn <= 0:
             continue
         lines.append(
-            f"chan {slot} {int(tab.prn[slot])} "
+            f"chan {slot} {prn} "
             f"{float(tab.f_carr[slot])!r} {float(tab.f_code[slot])!r} "
             f"{float(tab.code_phase0[slot])!r} {float(tab.carr_phase0[slot])!r} "
-            f"{int(tab.ibit0[slot])} {harness_page_bits(tab, slot)}"
+            f"{int(tab.ibit0[slot])} {harness_page_bits(tab, slot)} "
+            f"{code_bits(prn, 'E1B')} {code_bits(prn, 'E1C')}"
         )
     lines.append(f"hotrun {NUM_IQ_SAMPLES} {delt!r}")
     proc = subprocess.run(
@@ -122,8 +132,11 @@ def run_reference_loop(exe: Path, tab) -> np.ndarray:
 
 
 def main() -> None:
-    sys.path.insert(0, str(REPO / "tools"))
-    exe = build_harness()
+    import tempfile
+
+    from galileo_sdr_sim_tpu import scenes
+
+    exe = build_harness(Path(tempfile.mkdtemp()))
     tabs = scene_states()
     arrays = {}
     meta = []
@@ -134,7 +147,7 @@ def main() -> None:
             "iumd": iumd,
             "grx_sec": float(tab.grx_sec),
             "n_chan": int((tab.prn > 0).sum()),
-            "state_digest": state_digest(tab),
+            "state_digest": scenes.state_digest(tab),
         })
         print(f"epoch {iumd}: {meta[-1]}")
     np.savez_compressed(

@@ -1,7 +1,7 @@
 """Generate the I/NAV A/B golden fixture from the *reference binary*.
 
 Compiles the reference simulator's own encoder (unmodified
-/root/reference/src/inav-msg.cpp + datatypes.cpp) with the harness in
+$GALILEO_UPSTREAM_DIR/src/inav-msg.cpp + datatypes.cpp) with the harness in
 tests/ref_harness/, drives it over real ephemerides from 20feb2022.rnx
 across every word-type slot of the 60 s schedule (plus odd-TOW stamps,
 which the epoch loop can produce), and stores inputs + 500-symbol output
@@ -14,12 +14,15 @@ every page bit-for-bit.  Run from the repo root:
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-REF = Path("/root/reference")
+# the upstream galileo-sdr-sim checkout this tool reads
+REF = Path(os.environ.get("GALILEO_UPSTREAM_DIR") or sys.exit(
+    "set GALILEO_UPSTREAM_DIR to the upstream galileo-sdr-sim checkout"))
 OUT = REPO / "tests" / "data" / "inav_ref_pages.json"
 
 sys.path.insert(0, str(REPO))
@@ -40,6 +43,7 @@ def build_harness() -> Path:
     cmd = [
         "g++", "-O1",
         "-I", str(REPO / "tests" / "ref_harness" / "shim"),
+        "-I", str(REF / "include"),
         "-o", str(exe),
         str(REPO / "tests" / "ref_harness" / "harness.cpp"),
         str(REF / "src" / "inav-msg.cpp"),

@@ -2,7 +2,7 @@
 *reference binary*.
 
 Compiles the reference simulator's own geodesy/observables/iono layer
-(unmodified /root/reference/src/geodesy.cpp, gal-sig.cpp, gnss-time.cpp,
+(unmodified $GALILEO_UPSTREAM_DIR/src/geodesy.cpp, gal-sig.cpp, gnss-time.cpp,
 iono.cpp) with tests/ref_harness/harness_obs.cpp and drives
 satpos / computeRange / computeCodePhase / checkSatVisibility /
 ionosphericDelay over a grid of (satellite x epoch x receiver position)
@@ -21,6 +21,7 @@ float64 precision.  Run from the repo root:
 """
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -28,7 +29,9 @@ from pathlib import Path
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
-REF = Path("/root/reference")
+# the upstream galileo-sdr-sim checkout this tool reads
+REF = Path(os.environ.get("GALILEO_UPSTREAM_DIR") or sys.exit(
+    "set GALILEO_UPSTREAM_DIR to the upstream galileo-sdr-sim checkout"))
 OBS_OUT = REPO / "tests" / "data" / "obs_ref_fixture.json"
 IONO_OUT = REPO / "tests" / "data" / "iono_ref_fixture.json"
 
@@ -66,6 +69,7 @@ def build_harness() -> Path:
     cmd = [
         "g++", "-O1",
         "-I", str(REPO / "tests" / "ref_harness" / "shim"),
+        "-I", str(REF / "include"),
         "-o", str(exe),
         str(REPO / "tests" / "ref_harness" / "harness_obs.cpp"),
         str(REF / "src" / "geodesy.cpp"),
